@@ -1,6 +1,6 @@
 // Native host-side runtime for various_image_processings_tpu.
 //
-// The TPU compute path is JAX/Pallas; these are the inherently sequential
+// The device compute path is JAX/Pallas; these are the inherently sequential
 // host algorithms that sit around it (the parts the reference also runs on
 // the host CPU):
 //   - 4-connected component labeling in raster first-encounter order

@@ -181,82 +181,72 @@ def test_p117_incremental_update_matches_rebuild():
         np.testing.assert_array_equal(np.asarray(upd), np.asarray(ref))
 
 
-def test_pallas_search_matches_conv_path(monkeypatch):
-    """The fused matmul+argmin kernel (interpret mode on CPU) must agree
-    with the conv+argmin path: identical picks on unique minima and the
-    same lexicographic (energy, raster index) tie rule; energies equal up
-    to f32 summation order of exact products."""
+def _search(img, rem, targets, initial=False):
     import jax.numpy as jnp
     from various_image_processings_tpu.models import inpainting as M
 
-    rng = np.random.default_rng(3)
-    h, w = 34, 45
-    img = rng.integers(0, 256, (h, w, 3)).astype(np.float32)
-    rem = np.zeros((h, w), np.float32)
-    rem[15:20, 21:26] = 1.0
-    targets = [(15, 21), (15, 25), (19, 23), (5, 1)]
-    rem[5, 1] = 1.0
+    h, w = rem.shape
+    img_j = jnp.asarray(img)
     ty = jnp.asarray(np.array([t[0] for t in targets], np.int32))
     tx = jnp.asarray(np.array([t[1] for t in targets], np.int32))
     tvalid = jnp.asarray(np.ones(len(targets), bool))
-    img_j = jnp.asarray(img)
-    p117 = M._build_p117(img_j, w)
-
-    outs = {}
-    for impl in ("conv", "pallas"):
-        monkeypatch.setattr(M, "_search_impl", lambda impl=impl: impl)
-        outs[impl] = [np.asarray(v) for v in M._ring_targets_search(
-            img_j, p117, jnp.asarray(rem), ty, tx, tvalid, h, w,
-            initial=False)]
-    e_c, y_c, x_c = outs["conv"]
-    e_p, y_p, x_p = outs["pallas"]
-    np.testing.assert_array_equal(y_p, y_c)
-    np.testing.assert_array_equal(x_p, x_c)
-    np.testing.assert_allclose(e_p, e_c, rtol=1e-6, atol=4.0)
+    return [np.asarray(v) for v in M._ring_targets_search(
+        img_j, M._build_p117(img_j, w), jnp.asarray(rem), ty, tx, tvalid,
+        h, w, initial=initial)]
 
 
-def test_pallas_search_end_to_end_fill(monkeypatch):
-    """Full periodic-texture fill through the pallas search backend."""
-    from various_image_processings_tpu.models import inpainting as M
+def test_conv_search_first_minimum_raster_tie_break():
+    """Vertical stripes of period 4 make every 4th candidate column an exact
+    zero-energy match: the conv search must pick the FIRST one in raster
+    order of window centres (the reference's scan order), i.e. the lowest
+    valid row, then the lowest matching column."""
+    from various_image_processings_tpu.models.inpainting import WHALF
 
-    monkeypatch.setenv("VIP_WEXLER_SEARCH", "pallas")
-    # the backend is chosen at trace time: drop any conv-traced executables
-    # for these shapes (earlier tests share them), and drop ours afterwards
-    M._fill_pass_device.clear_cache()
-    M._energy_loops_device.clear_cache()
-    try:
-        size = 72
-        img = np.zeros((size, size, 3), np.uint8)
-        stripes = ((np.arange(size) // 4) % 2 * 180 + 40).astype(np.uint8)
-        img[:, :, :] = stripes[None, :, None]
-        mask = square_mask(size, 30, 38, 30, 38)
-        out = inpainting_wexler(img, mask, verbose=False)
-        diff = np.abs(out.astype(int) - img.astype(int))[30:38, 30:38]
-        assert np.median(diff) <= 2
-        assert diff.mean() <= 30
-    finally:
-        # don't leave pallas-traced executables for later conv-path tests
-        M._fill_pass_device.clear_cache()
-        M._energy_loops_device.clear_cache()
+    h, w = 34, 45
+    stripes = ((np.arange(w) // 2) % 2 * 180 + 40).astype(np.float32)
+    img = np.broadcast_to(stripes[None, :, None], (h, w, 3)).copy()
+    rem = np.zeros((h, w), np.float32)
+    rem[20:24, 25:29] = 1.0
+    targets = [(20, 25), (23, 28)]
+    e, by, bx = _search(img, rem, targets)
+    for i, (ty, tx) in enumerate(targets):
+        assert e[i] == 0.0
+        assert by[i] == WHALF
+        # first column ≥ WHALF with the target's stripe phase
+        want_x = next(x for x in range(WHALF, w - WHALF)
+                      if (x - tx) % 4 == 0)
+        assert bx[i] == want_x
 
 
-def test_pallas_search_failure_parity(monkeypatch):
-    """When every candidate window touches the hole, both backends must
-    report +inf energies (the search-failure path, PARITY.md D4)."""
-    import jax.numpy as jnp
-    from various_image_processings_tpu.models import inpainting as M
-
+def test_conv_search_all_invalid_candidates_inf():
+    """When every 13×13 candidate window touches the hole, the search has no
+    candidate and must report +inf energy (the search-failure signal,
+    PARITY.md D4) for every valid target."""
     h, w = 20, 20
     img = np.full((h, w, 3), 50, np.float32)
     rem = np.zeros((h, w), np.float32)
     rem[9, 9] = 1.0  # any 13x13 window inside a 20x20 image contains (9,9)
-    ty = jnp.asarray(np.array([9], np.int32))
-    tx = jnp.asarray(np.array([9], np.int32))
-    tvalid = jnp.asarray(np.ones(1, bool))
-    img_j = jnp.asarray(img)
-    p117 = M._build_p117(img_j, w)
-    for impl in ("conv", "pallas"):
-        monkeypatch.setattr(M, "_search_impl", lambda impl=impl: impl)
-        e, _, _ = M._ring_targets_search(img_j, p117, jnp.asarray(rem),
-                                         ty, tx, tvalid, h, w, initial=False)
-        assert not np.isfinite(np.asarray(e)[0]), impl
+    e, _, _ = _search(img, rem, [(9, 9), (9, 9)])
+    assert not np.isfinite(e).any()
+
+
+def test_search_failure_discards_pass():
+    """Failure parity (PARITY.md D4): a fill pass whose search fails reports
+    energy −1, and the pipeline keeps its current image instead of
+    committing a partial fill."""
+    import jax.numpy as jnp
+    from various_image_processings_tpu.models.inpainting import (
+        _fill_pass_device)
+
+    h, w = 20, 20
+    img = np.full((h, w, 3), 50, np.uint8)
+    img[9, 9] = 7
+    mask = np.zeros((h, w), np.uint8)
+    mask[9, 9] = 255
+    _, energy = _fill_pass_device(
+        jnp.asarray(img), jnp.asarray((mask > 0).astype(np.float32)),
+        jnp.asarray(calculate_weight(mask > 0).astype(np.float32)), h, w,
+        True, bbox_size=(h, w), bbox_origin=jnp.zeros(2, jnp.int32))
+    assert float(energy) == -1.0
+    out = inpainting_wexler(img, mask)
+    np.testing.assert_array_equal(out, img)

@@ -1,15 +1,25 @@
-"""Pallas kernel parity (interpret mode on CPU; the same kernels compile to
-Mosaic on TPU — validated by bench/verify runs on hardware)."""
+"""Kernel parity on the CPU.
 
+The bilateral / joint bilateral cases run the Pallas-Triton kernel
+(ops/pallas/bilateral.py) in interpret mode against the golden twin; the
+compiled kernel is held to the same references on the card by
+tests/test_gpu.py.  ABF, gradient and the BTF stages have no kernel: their
+cases here hold the XLA paths to golden."""
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from various_image_processings_tpu import golden
 from various_image_processings_tpu.core.rng import random_image, random_array
 from various_image_processings_tpu.ops.bilateral import (
-    bilateral_filter, joint_bilateral_filter)
+    bilateral_filter, joint_bilateral_filter, _bilateral_math)
 from various_image_processings_tpu.ops.adaptive_bilateral import adaptive_bilateral_filter
 from various_image_processings_tpu.ops.gradient import gradient
+from various_image_processings_tpu.ops.pallas.bilateral import (
+    joint_bilateral_pallas, _tap_tables)
+
+SQRT3 = float(np.sqrt(np.float32(3.0)))
 
 
 def max_diff(a, b):
@@ -34,8 +44,7 @@ def test_pallas_joint_bilateral_vs_golden():
 
 @pytest.mark.parametrize("ksize", [3, 5, 11])
 def test_pallas_bilateral_pair_kernel_other_k(ksize):
-    # the pair-symmetric full-unroll path at other odd k (different pair
-    # sets, even/odd tap-row splits, asymmetric extended regions)
+    # other odd k: other circle spans per tap row, other halo widths
     src = random_image(41, 57)
     expected = golden.bilateral_filter(src, ksize, 10.0, 30.0)
     actual = bilateral_filter(src, ksize, 10.0, 30.0, impl="pallas")
@@ -53,25 +62,22 @@ def test_pallas_joint_pair_kernel_k11():
 def test_pallas_adaptive_bilateral_vs_golden():
     src = random_image(50, 50)
     expected = golden.adaptive_bilateral_filter(src, 9, 10.0, 30.0)
-    actual = adaptive_bilateral_filter(src, 9, 10.0, 30.0, impl="pallas")
+    actual = adaptive_bilateral_filter(src, 9, 10.0, 30.0, impl="xla")
     assert max_diff(actual, expected) <= 1
 
 
 def test_pallas_adaptive_bilateral_large_sigma_specialized_kernel():
     """σ_color ≳ 107 puts the LUT zero index past the reachable dist range
-    (3·510), so the kernel drops the exact-zero cut at trace time
-    (ops/pallas/adaptive_bilateral.py) — this pins the specialized kernel's
-    parity on both sides of that threshold."""
+    (3·510); pins the XLA path's parity on both sides of that threshold."""
     src = random_image(50, 50)
     for sc in (105.0, 150.0):
         expected = golden.adaptive_bilateral_filter(src, 9, 10.0, sc)
-        actual = adaptive_bilateral_filter(src, 9, 10.0, sc, impl="pallas")
+        actual = adaptive_bilateral_filter(src, 9, 10.0, sc, impl="xla")
         assert max_diff(actual, expected) <= 1, sc
 
 
 def test_pallas_large_ksize_falls_back_to_xla():
-    # 17×17 (the BTF joint-bilateral size) exceeds the unroll budget and must
-    # still produce parity output through the fallback
+    # 17×17 (the BTF joint-bilateral size): the same kernel, longer tap loop
     src = random_image(40, 40)
     expected = golden.joint_bilateral_filter(src, src, 17, 8.0, 1.7320508)
     actual = joint_bilateral_filter(src, src, 17, 8.0, 1.7320508, impl="pallas")
@@ -82,24 +88,24 @@ def test_pallas_large_ksize_falls_back_to_xla():
 def test_pallas_gradient_vs_golden(channels):
     src = random_array(50 * 50 * channels).reshape(50, 50, channels)
     expected = golden.gradient(src)
-    got = np.asarray(gradient(src, impl="pallas"))
+    got = np.asarray(gradient(src, impl="xla"))
     ulp = np.spacing(np.maximum(np.abs(got), np.abs(expected)))
     assert np.all(np.abs(got - expected) <= 4 * ulp)
 
 
 def test_pallas_btf_stages_vs_golden():
-    import jax.numpy as jnp
-    from various_image_processings_tpu.ops.pallas.bilateral_texture import (
-        blur_and_rtv_pallas, guide_pallas)
+    from various_image_processings_tpu.ops.bilateral_texture import (
+        _blur_and_rtv_math, _guide_math)
     src = random_image(50, 50)
     mag = golden.gradient(src)
     blurred_g, rtv_g = golden.compute_blur_and_rtv(src, mag, 9)
-    blurred, rtv = blur_and_rtv_pallas(jnp.asarray(src).astype(jnp.float32),
-                                       jnp.asarray(mag), 9)
+    blurred, rtv = _blur_and_rtv_math(jnp.asarray(src).astype(jnp.float32),
+                                      jnp.asarray(mag), 9)
     np.testing.assert_allclose(np.asarray(blurred), blurred_g, atol=1e-3)
     np.testing.assert_allclose(np.asarray(rtv), rtv_g, rtol=1e-4, atol=1e-5)
     expected_guide = golden.compute_guide(blurred_g, rtv_g, 9)
-    guide = np.asarray(guide_pallas(jnp.asarray(blurred_g), jnp.asarray(rtv_g), 9))
+    guide = np.asarray(_guide_math(jnp.asarray(blurred_g), jnp.asarray(rtv_g),
+                                   9, strict=True))
     assert max_diff(guide, expected_guide) <= 1
 
 
@@ -115,7 +121,7 @@ def test_pallas_btf_end_to_end():
 
 @pytest.mark.parametrize("ksize", [17, 21])
 def test_pallas_chunked_self_bilateral(ksize):
-    # self-guided large-k path (chunked kernel, single input stream)
+    # self-guided large k (one input stream, many tap rows)
     src = random_image(45, 70)
     expected = golden.bilateral_filter(src, ksize, 10.0, 30.0)
     actual = bilateral_filter(src, ksize, 10.0, 30.0, impl="pallas")
@@ -133,34 +139,31 @@ def test_pallas_chunked_joint_rectangular():
 @pytest.mark.parametrize("border,rounding", [("replicate", "trunc"),
                                              ("reflect101", "rint")])
 def test_planar_joint_bilateral_matches_hwc(border, rounding):
-    """The planar (3,H,W) entry the BTF pipeline uses must be bit-identical
-    to the HWC path for both JBF semantics (reference-CUDA and
-    cv::ximgproc); exercises pad_planar's replicate AND reflect-101
-    borders and the planar split path at k=17."""
-    import jax.numpy as jnp
-    from various_image_processings_tpu.ops.pallas.bilateral import (
-        joint_bilateral_pallas, joint_bilateral_pallas_planar)
-
+    """The kernel works on the planar (3, H, W) padded image; its HWC
+    result must match the HWC XLA path for both JBF semantics
+    (reference-CUDA and cv::ximgproc) at the BTF's k=17 — exercising the
+    replicate AND reflect-101 halo and the half-even rounding."""
     src = random_image(41, 57)
     guide = random_image(41, 57)[::-1].copy()
-    hwc = joint_bilateral_pallas(jnp.asarray(src), jnp.asarray(guide), 17,
-                                 8.0, float(np.sqrt(np.float32(3.0))),
-                                 border=border, rounding=rounding)
-    planar = joint_bilateral_pallas_planar(
-        jnp.asarray(src).transpose(2, 0, 1),
-        jnp.asarray(guide).astype(jnp.float32).transpose(2, 0, 1), 17,
-        8.0, float(np.sqrt(np.float32(3.0))),
-        border=border, rounding=rounding)
-    assert max_diff(planar.transpose(1, 2, 0), hwc) == 0
+    kern = np.asarray(joint_bilateral_pallas(
+        jnp.asarray(src), jnp.asarray(guide), 17, 8.0, SQRT3, border,
+        rounding, interpret=True))
+    xla = np.asarray(_bilateral_math(
+        jnp.asarray(src).astype(jnp.float32),
+        jnp.asarray(guide).astype(jnp.float32), 17, 8.0, SQRT3, border,
+        rounding))
+    assert kern.shape == src.shape and kern.dtype == np.uint8
+    diff = np.abs(kern.astype(int) - xla.astype(int))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() < 1e-3
 
 
-# Deterministic odd-shape sweep: shapes drawn to stress the tiling machinery
-# (heights below one (8,·) sublane tile, widths one past the 128-lane
-# boundary, extreme aspect ratios).  Shapes cover the kernel families whose
-# padding/blocking logic differs (full-unroll pair path at k=9,
-# per-pixel-offset ABF, chunked split path at k=17); counts are trimmed to
-# keep the interpret-mode suite cost ~1 min.
-_SWEEP_SHAPES = [(7, 131), (9, 257), (83, 19)]
+# Deterministic odd-shape sweep over the kernel's (8, 64) output tile:
+# exactly one tile, heights below one tile, widths one past a tile
+# boundary, several tiles with a partial last one, extreme aspect ratios —
+# the padding/cropping of the kernel wrapper (k=9 and the BTF's k=17) and
+# the ABF XLA path.
+_SWEEP_SHAPES = [(8, 64), (7, 131), (9, 257), (25, 130), (83, 19)]
 
 
 @pytest.mark.parametrize("shape", _SWEEP_SHAPES)
@@ -174,7 +177,7 @@ def test_odd_shape_sweep_bilateral(shape):
 def test_odd_shape_sweep_adaptive():
     src = random_image(7, 131)
     expected = golden.adaptive_bilateral_filter(src, 9, 10.0, 30.0)
-    actual = adaptive_bilateral_filter(src, 9, 10.0, 30.0, impl="pallas")
+    actual = adaptive_bilateral_filter(src, 9, 10.0, 30.0, impl="xla")
     assert max_diff(actual, expected) <= 1
 
 
@@ -201,3 +204,23 @@ def test_sub_radius_images_match_golden(shape):
                     golden.adaptive_bilateral_filter(src, 9, 10.0, 30.0)) == 0
     assert max_diff(bilateral_texture_filter(src, ksize=5, nitr=1, impl="xla"),
                     golden.bilateral_texture_filter(src, ksize=5, nitr=1)) == 0
+
+
+@pytest.mark.parametrize("ksize,sigma_space", [(3, 10.0), (9, 10.0),
+                                               (17, 8.0), (15, 0.5)])
+def test_tap_tables_cover_exactly_the_nonzero_taps(ksize, sigma_space):
+    """The kernel loops over each tap row's [lo, hi) span: together the
+    spans must hold every non-zero spatial weight (in (ky, kx) order) and
+    nothing but zeros besides."""
+    from various_image_processings_tpu.core.luts import space_kernel
+    ws, span = _tap_tables(ksize, sigma_space)
+    space = space_kernel(ksize, sigma_space)
+    np.testing.assert_array_equal(ws, space.reshape(-1))
+    covered = np.zeros((ksize, ksize), bool)
+    for ky in range(ksize):
+        lo, hi = span[2 * ky], span[2 * ky + 1]
+        assert 0 <= lo <= hi <= ksize
+        covered[ky, lo:hi] = True
+    assert not space[~covered].any()
+    assert covered[ksize // 2, ksize // 2]
+

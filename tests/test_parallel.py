@@ -175,10 +175,9 @@ def test_sharded_btf_bit_exact(spatial, nitr):
 
 
 def test_sharded_pallas_impl_bit_exact():
-    # impl="pallas" now runs the actual Pallas stage kernels under shard_map
-    # (interpret mode on the CPU mesh) — must match the single-device pallas
-    # op exactly (round 2 fell back to xla math here; the "40× shard_map ×
-    # Pallas" overhead was an eager-dispatch artifact, diag_shardmap.py)
+    # impl="pallas" runs the Triton bilateral kernel under shard_map
+    # (interpret mode on the CPU mesh) — must match the single-device
+    # kernel op exactly
     img = batch_images(1, 64, 48)[0]
     mesh = make_mesh(batch=1, spatial=2)
     out = np.asarray(bilateral_filter_sharded(img, 5, 10.0, 30.0, mesh=mesh,
@@ -188,6 +187,7 @@ def test_sharded_pallas_impl_bit_exact():
 
 
 def test_sharded_btf_pallas_impl_bit_exact():
+    # per-stage halo exchange around the XLA stages and the kernel JBF
     from various_image_processings_tpu.parallel.spatial import (
         bilateral_texture_filter_sharded)
     from various_image_processings_tpu.ops.bilateral_texture import (
@@ -238,9 +238,9 @@ def test_batched_apply_rank_changing_fn():
 
     mesh = make_mesh(batch=2, spatial=1)
     imgs = jnp.asarray(np.stack([random_image(16, 16) for _ in range(4)]))
-    out = batched_apply(lambda im: _gradient_jit(im, impl="xla"), imgs, mesh)
+    out = batched_apply(_gradient_jit, imgs, mesh)
     assert out.shape == (4, 16, 16)
-    single = _gradient_jit(imgs[0], impl="xla")
+    single = _gradient_jit(imgs[0])
     np.testing.assert_array_equal(np.asarray(out[0]), np.asarray(single))
 
 

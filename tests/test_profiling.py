@@ -4,11 +4,10 @@ SURVEY.md §5 asks for jax.profiler traces + MP/s reporting)."""
 import os
 
 import jax.numpy as jnp
-import numpy as np
 import pytest
 
 from various_image_processings_tpu.utils.profiling import (
-    measure, measure_chained, measure_throughput, fence, trace)
+    measure, measure_throughput, fence, trace)
 
 
 def test_measure_returns_positive_msec():
@@ -21,11 +20,6 @@ def test_measure_throughput():
     x = jnp.ones((64, 64))
     ms, mps = measure_throughput(lambda: x + 1.0, pixels=64 * 64, iters=3)
     assert ms > 0 and mps > 0
-
-
-def test_measure_chained_runs():
-    ms = measure_chained(lambda x: x * 1.0001, jnp.ones((128, 128)), iters=4)
-    assert np.isfinite(ms)
 
 
 def test_fence_handles_pytrees():

@@ -378,7 +378,7 @@ def test_wexler_near_border_hole_vs_reference(oracle):
     near borders (include/cpp/wexler_inpainting.hpp:229-241): candidate
     windows at the border are clipped differently per target there, while
     we reject any window touching the hole globally
-    (models/inpainting.py:52-59, PARITY.md D4 — the shared MXU candidate
+    (models/inpainting.py:52-59, PARITY.md D4 — the shared candidate
     matrix requires a target-independent set).  Exemplar choices may
     differ; fill QUALITY must stay in the reference's regime."""
     cv2 = pytest.importorskip("cv2")

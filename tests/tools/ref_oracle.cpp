@@ -131,7 +131,7 @@ int main(int argc, char** argv) {
         internal::compute_guide(blurred, rtv, dst, ksize);
         write_file(out_path, dst.data, (size_t)h * w * 3);
     } else if (op == "bench") {
-        // Head-to-head timing mode (benchmarks/ref_headtohead.py): run ONE
+        // Head-to-head timing mode: run ONE
         // reference cpp algorithm n_iter+1 times on the input image, first
         // run discarded as warmup — the same semantics as the reference's
         // MEASURE macro (sample/benchmark/main.cpp:20-33; timing loop

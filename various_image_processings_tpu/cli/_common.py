@@ -13,10 +13,13 @@ import time
 import jax
 import numpy as np
 
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.io import imread, imwrite
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
+    """The shared CLI arguments; also points JAX at its compile cache."""
+    enable_compile_cache()
     p = argparse.ArgumentParser(description=description)
     p.add_argument("filename", help="input image path")
     p.add_argument("--output", "-o", default=None,

@@ -2,7 +2,7 @@
 
 Counterpart of the reference's ``DeviceImage<T>`` (include/cuda/device_image.hpp:4,
 src/device_image.cu), which is a thrust-backed W×H×C device buffer with
-upload/download.  On TPU the runtime equivalent is a committed jax.Array;
+upload/download.  On the device the runtime equivalent is a committed jax.Array;
 this wrapper keeps the familiar API (upload / download / get) and pins the
 buffer to a chosen device.  jitted ops consume it with zero copies.
 """

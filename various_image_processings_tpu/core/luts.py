@@ -58,10 +58,10 @@ def pre_compute_kernels(ksize: int, sigma_space: float, sigma_color: float,
 def gauss_coeff_f32(sigma: float) -> np.float32:
     """f32 value of ``-1. / (2 σ²)`` with the C++ evaluation order.
 
-    The device kernels recompute the range Gaussian as ``exp(d² * coeff)``
-    instead of gathering from the 768/1536-entry table — numerically within
-    1 ulp of the table entries (the table is built in f64), far inside the
-    ±1/255 parity budget, and much faster than per-pixel gathers on the VPU.
+    The adaptive bilateral path recomputes its range Gaussian as
+    ``exp(d² * coeff)`` (with the double-rounding twin of PARITY.md D2b)
+    instead of gathering from the 1536-entry table — within 1 ulp of the
+    table entries (the table is built in f64).
     """
     denom = np.float32(np.float32(2.0 * np.float32(sigma)) * np.float32(sigma))
     return np.float32(-1.0 / float(denom))

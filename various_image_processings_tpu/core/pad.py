@@ -2,8 +2,8 @@
 
 The reference clamps window coordinates to the image rect everywhere
 (``std::clamp(x + kx, 0, width - 1)``, e.g. include/cpp/bilateral_filter.hpp:89-90),
-which is exactly replicate ("edge") padding.  On TPU we pre-pad once and turn
-every clamped gather into a static slice, which XLA/Mosaic fuse for free.
+which is exactly replicate ("edge") padding.  On the device we pre-pad once
+and turn every clamped gather into a static slice, which XLA fuses.
 """
 
 from __future__ import annotations

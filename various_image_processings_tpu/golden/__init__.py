@@ -4,7 +4,7 @@ Pure NumPy implementations that reproduce the reference C++ CPU layer's
 arithmetic exactly (same f32 accumulation order, same LUT contents, same u8
 truncation), playing the role the hand-written scalar references play in the
 reference's test suite (e.g. test/adaptive_bilateral_filter.cu:7-119).  They
-are the oracles the TPU (XLA / Pallas) paths are parity-tested against.
+are the oracles the device (XLA / Pallas) paths are parity-tested against.
 """
 
 from .gradient import gradient as gradient

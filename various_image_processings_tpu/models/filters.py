@@ -5,9 +5,9 @@ include/cuda/bilateral_filter.hpp:7, ``CudaAdaptiveBilateralFilter``
 include/cuda/adaptive_bilateral_filter.hpp:7, ``CudaBilateralTextureFilter``
 include/cuda/bilateral_texture_filter.hpp:7): the constructor fixes the
 image size and parameters and pre-builds everything reusable; calls then run
-without per-call setup.  On TPU the ctor/execute split maps exactly onto
+without per-call setup.  The ctor/execute split maps exactly onto
 trace/compile time vs run time — ``warmup()`` (or the first call) triggers
-the one-off XLA/Mosaic compilation, subsequent calls hit the executable
+the one-off XLA/Triton compilation, subsequent calls hit the executable
 cache.
 """
 
@@ -23,10 +23,11 @@ from ..ops.bilateral_texture import _btf_jit
 
 
 class _ShapeSpecialized:
-    def __init__(self, height: int, width: int, impl: str):
+    def __init__(self, height: int, width: int, impl: str,
+                 has_kernel: bool = True):
         self.height = height
         self.width = width
-        self.impl = resolve_impl(impl)
+        self.impl = resolve_impl(impl, has_kernel)
 
     def _check(self, img) -> jax.Array:
         img = jnp.asarray(img)
@@ -70,11 +71,11 @@ class AdaptiveBilateralFilter(_ShapeSpecialized):
     def __init__(self, height: int, width: int, ksize: int = 9,
                  sigma_space: float = 10.0, sigma_color: float = 30.0,
                  impl: str = "auto"):
-        super().__init__(height, width, impl)
+        super().__init__(height, width, impl, has_kernel=False)
         self.params = (int(ksize), float(sigma_space), float(sigma_color))
 
     def __call__(self, src) -> jax.Array:
-        return _abf_jit(self._check(src), *self.params, self.impl)
+        return _abf_jit(self._check(src), *self.params)
 
     adaptive_bilateral_filter = __call__
 

@@ -1,53 +1,39 @@
-"""Implementation dispatch: every op has an `xla` path (pure jax.numpy, runs
-anywhere, fuses under jit) and a `pallas` path (hand-tiled TPU kernel).
+"""Implementation dispatch.
 
-`impl="auto"` picks pallas on TPU and xla elsewhere.  On non-TPU backends the
-pallas path still runs (interpret mode) so its logic stays testable on the
-CPU mesh used by the test suite.
+Every op has an `xla` path (pure jax.numpy, runs anywhere).  The bilateral
+family (bilateral, joint bilateral, and the JBF stage of the bilateral
+texture filter) also has a `pallas` path: a Pallas-Triton GPU kernel
+(ops/pallas/bilateral.py).
+
+``resolve_impl`` turns the user's choice into the path that runs:
+
+- ``"auto"`` → ``"pallas"`` on a `gpu` backend for ops that have a kernel,
+  ``"xla"`` otherwise;
+- ``"pallas"`` on an op without a kernel is an error, not a silent XLA run;
+- ``"pallas"`` on a `cpu` backend (the test suite) → ``"interpret"``: the
+  same kernel in Pallas interpret mode.  Nowhere else is the kernel
+  interpreted.
+
+The resolved string is a static argument of the jitted op, so a compiled
+kernel and an interpreted one never share a trace.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 
 VALID_IMPLS = ("auto", "xla", "pallas")
 
 
-def on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
-@functools.cache
-def pallas_ready() -> bool:
-    try:
-        from .pallas import bilateral  # noqa: F401
-        return True
-    except Exception:
-        return False
-
-
-def resolve_impl(impl: str) -> str:
+def resolve_impl(impl: str, has_kernel: bool = True) -> str:
     if impl not in VALID_IMPLS:
         raise ValueError(f"impl must be one of {VALID_IMPLS}, got {impl!r}")
+    backend = jax.default_backend()
     if impl == "auto":
-        return "pallas" if (on_tpu() and pallas_ready()) else "xla"
+        impl = "pallas" if has_kernel and backend == "gpu" else "xla"
+    elif impl == "pallas" and not has_kernel:
+        raise ValueError('this op has no Pallas kernel; use impl="xla" or '
+                         '"auto"')
+    if impl == "pallas" and backend == "cpu":
+        return "interpret"
     return impl
-
-
-def pallas_interpret() -> bool:
-    """Pallas kernels run in interpreter mode off-TPU (tests on CPU).
-
-    VIP_PALLAS_FORCE_COMPILE=1 forces interpret=False regardless of the
-    local backend so ``jax.export(..., platforms=['tpu'])`` exercises the
-    real Pallas→Mosaic lowering on a CPU host — the only way to catch
-    unsupported-primitive lowering errors without a chip
-    (tests/test_tpu_lowering.py)."""
-    import os
-    if os.environ.get("VIP_PALLAS_FORCE_COMPILE"):
-        return False
-    return not on_tpu()

@@ -1,6 +1,6 @@
 """Bilateral and joint bilateral filters.
 
-TPU-native counterpart of ``bilateral_filter`` / ``joint_bilateral_filter``
+Counterpart of ``bilateral_filter`` / ``joint_bilateral_filter``
 (reference: include/cpp/bilateral_filter.hpp:41-207) and the CUDA kernels
 (reference: src/bilateral_filter_impl.cu:7-96, :98-202).
 
@@ -12,8 +12,8 @@ Semantics preserved for ±1/255 parity:
 - output ``u8(sum/sumk + 0.5f)`` truncation.
 
 The XLA path unrolls the (non-zero) taps of the stencil into one fused
-program over the replicate-padded image; the Pallas path tiles row strips
-through VMEM (ops/pallas/bilateral.py).
+program over the replicate-padded image; the Pallas path is a Triton GPU
+kernel over (TH, TW) output tiles (ops/pallas/bilateral.py).
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ def _bilateral_math(src_f: jax.Array, guide_f: jax.Array, ksize: int,
     are flushed through chunked optimization_barriers so the accumulation
     adds only ever see materialized, separately-rounded products — eager
     and jit then agree bit-for-bit.  Costs extra materialization traffic;
-    used by the BTF composition (its perf path is Pallas anyway)."""
+    used by the BTF composition."""
     h, w, _ = src_f.shape
     radius = ksize // 2
     coeff = gauss_coeff_f32(sigma_color)
@@ -131,9 +131,11 @@ def _bilateral_math(src_f: jax.Array, guide_f: jax.Array, ksize: int,
 @functools.partial(jax.jit, static_argnames=("ksize", "sigma_space", "sigma_color", "impl"))
 def _bf_jit(src: jax.Array, ksize: int, sigma_space: float,
             sigma_color: float, impl: str) -> jax.Array:
-    if impl == "pallas":
-        from .pallas.bilateral import bilateral_pallas
-        return bilateral_pallas(src, ksize, sigma_space, sigma_color)
+    if impl != "xla":
+        from .pallas.bilateral import joint_bilateral_pallas
+        return joint_bilateral_pallas(src, None, ksize, sigma_space,
+                                      sigma_color,
+                                      interpret=impl == "interpret")
     src_f = src.astype(jnp.float32)
     return _bilateral_math(src_f, src_f, ksize, sigma_space, sigma_color)
 
@@ -143,11 +145,11 @@ def _bf_jit(src: jax.Array, ksize: int, sigma_space: float,
 def _jbf_jit(src: jax.Array, guide: jax.Array, ksize: int, sigma_space: float,
              sigma_color: float, impl: str, border: str = "replicate",
              rounding: str = "trunc") -> jax.Array:
-    if impl == "pallas":
+    if impl != "xla":
         from .pallas.bilateral import joint_bilateral_pallas
         return joint_bilateral_pallas(src, guide, ksize, sigma_space,
-                                      sigma_color, border=border,
-                                      rounding=rounding)
+                                      sigma_color, border, rounding,
+                                      interpret=impl == "interpret")
     return _bilateral_math(src.astype(jnp.float32), guide.astype(jnp.float32),
                            ksize, sigma_space, sigma_color, border, rounding)
 

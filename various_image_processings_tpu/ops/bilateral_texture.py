@@ -1,6 +1,6 @@
 """Bilateral texture filter (Cho et al. 2014 texture removal).
 
-TPU-native counterpart of ``BilateralTextureFilterImpl::execute`` (reference:
+Counterpart of ``BilateralTextureFilterImpl::execute`` (reference:
 include/cpp/bilateral_texture_filter.hpp:153-164) and the CUDA pipeline
 (reference: src/bilateral_texture_filter_impl.cu:199-214).
 
@@ -11,7 +11,9 @@ in-repo JBF variant used by the reference's CUDA path,
 src/bilateral_texture_filter_impl.cu:188; the CPU path defers to OpenCV's
 ximgproc jointBilateralFilter instead, which differs slightly).
 
-The whole nitr-iteration pipeline stays one XLA program via lax.fori_loop.
+The whole nitr-iteration pipeline stays one XLA program via lax.fori_loop;
+with ``impl="pallas"`` its JBF stage is the Triton kernel
+(ops/pallas/bilateral.py) and the other stages stay XLA.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import math
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from ..core.pad import replicate_pad
 from . import _validate
@@ -28,7 +31,7 @@ from ._dispatch import resolve_impl
 from .gradient import _gradient_math
 from .bilateral import _bilateral_math
 
-EPSILON = jnp.float32(1e-9)  # include/cpp/bilateral_texture_filter.hpp:15
+EPSILON = np.float32(1e-9)  # include/cpp/bilateral_texture_filter.hpp:15
 
 
 def _blur_and_rtv_math(image_f: jax.Array, magnitude: jax.Array, ksize: int):
@@ -133,30 +136,25 @@ def _btf_jit(src: jax.Array, ksize: int, nitr: int, impl: str,
     border = "reflect101" if variant == "cpp" else "replicate"
     rounding = "rint" if variant == "cpp" else "trunc"
 
-    if impl == "pallas":
-        from .pallas.bilateral_texture import btf_iteration_pallas
-        iteration = functools.partial(btf_iteration_pallas, ksize=ksize,
-                                      border=border, rounding=rounding)
-        # the pallas pipeline is planar end-to-end: transpose ONCE at the
-        # pipeline boundary, not per stage (HWC↔CHW relayouts with C=3 in
-        # the lane dim cost ~0.06 ms each at 600×900 on v5e)
-        src_p = src.transpose(2, 0, 1)
-        out_p = jax.lax.fori_loop(0, nitr, lambda _, img: iteration(img),
-                                  src_p, unroll=False)
-        return out_p.transpose(1, 2, 0)
-
     # strict composition (PARITY.md D1c): a ±1 jit-vs-eager flip in any
     # iteration amplifies through the next iteration's guide/JBF weights to
     # tens of u8, so the guide blend and JBF accumulation run with their
     # rounding sites pinned.  The gradient and blur/rtv stages need nothing:
     # the gradient's products are exact (integer-valued diffs), and
     # blur/rtv contain no mul-feeding-add chains (the divisions are already
-    # barrier-opaque).
+    # barrier-opaque).  The Pallas JBF kernel rounds every product and sum
+    # separately by construction.
     def iteration(img_u8):
         img_f = img_u8.astype(jnp.float32)
         magnitude = _gradient_math(img_f)
         blurred, rtv = _blur_and_rtv_math(img_f, magnitude, ksize)
         guide = _guide_math(blurred, rtv, ksize, strict=True)
+        if impl != "xla":
+            from .pallas.bilateral import joint_bilateral_pallas
+            return joint_bilateral_pallas(
+                img_u8, guide.astype(jnp.uint8), jbf_ksize, jbf_sigma_space,
+                jbf_sigma_color, border, rounding,
+                interpret=impl == "interpret")
         return _bilateral_math(img_f, guide, jbf_ksize,
                                jbf_sigma_space, jbf_sigma_color,
                                border, rounding, strict=True)

@@ -1,6 +1,6 @@
 """Sobel-style gradient magnitude.
 
-TPU-native counterpart of ``gradient`` (reference: include/cpp/gradient.hpp:89)
+Counterpart of ``gradient`` (reference: include/cpp/gradient.hpp:89)
 and ``cuda_gradient`` (reference: include/cuda/gradient.hpp:13): clamped
 central differences (one-sided forms at the borders are exactly central
 differences on a replicate-padded image), squared-summed over channels,
@@ -12,7 +12,6 @@ Supports u8 / f32 × 1 / 3 channels, matching the reference's dispatch
 
 from __future__ import annotations
 
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,12 +31,9 @@ def _gradient_math(s: jax.Array) -> jax.Array:
     return jnp.sqrt(total)
 
 
-@functools.partial(jax.jit, static_argnames=("impl",))
-def _gradient_jit(src: jax.Array, impl: str = "xla") -> jax.Array:
+@jax.jit
+def _gradient_jit(src: jax.Array) -> jax.Array:
     s = src if src.ndim == 3 else src[:, :, None]
-    if impl == "pallas":
-        from .pallas.gradient import gradient_pallas
-        return gradient_pallas(s)   # dtype-preserving HBM→VMEM (u8 or f32)
     return _gradient_math(s.astype(jnp.float32))
 
 
@@ -46,4 +42,5 @@ def gradient(src, impl: str = "auto") -> jax.Array:
     src = jnp.asarray(src)
     if src.dtype not in (jnp.uint8, jnp.float32):
         raise TypeError(f"gradient supports u8/f32, got {src.dtype}")
-    return _gradient_jit(src, impl=resolve_impl(impl))
+    resolve_impl(impl, has_kernel=False)
+    return _gradient_jit(src)

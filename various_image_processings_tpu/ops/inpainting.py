@@ -1,5 +1,5 @@
 """Wexler exemplar-based inpainting — implemented in models/inpainting.py
-(coarse-to-fine pyramid with MXU-batched patch search); this module re-exports
+(coarse-to-fine pyramid with conv-batched patch search); this module re-exports
 the functional wrapper.
 
 Counterpart of ``inpainting_wexler`` (reference:

@@ -1,6 +1,6 @@
 """Border-replicated integral image (summed-area table).
 
-TPU-native counterpart of ``BorderReplicatedIntegralImage`` (reference:
+Counterpart of ``BorderReplicatedIntegralImage`` (reference:
 include/cpp/border_replicated_integral_image.hpp:7-85).  The two sequential
 prefix passes become ``jnp.cumsum`` (XLA lowers these to efficient parallel
 scans); integer sources accumulate in int32, floating in float32, matching

@@ -1,504 +1,165 @@
-"""Pallas TPU kernel: bilateral / joint bilateral filter.
+"""Pallas-Triton kernel: bilateral / joint bilateral filter on the GPU.
 
-TPU-native redesign of the CUDA kernels ``bilateral_filter_kernel`` /
+GPU counterpart of the CUDA kernels ``bilateral_filter_kernel`` /
 ``joint_bilateral_filter_kernel`` (reference: src/bilateral_filter_impl.cu:7-96,
-:98-202).  Differences from the CUDA design, on purpose:
+:98-202), with the same per-pixel arithmetic as the golden twin
+(golden/bilateral.py):
 
-- the shared-memory halo tile becomes a VMEM halo block (`pl.Element`
-  window, offsets 8/128-aligned) with Mosaic pipelining the HBM→VMEM
-  copies across grid steps;
-- the 768-entry range-LUT gather becomes an in-register ``exp(d²·coeff)``
-  recompute — gathers serialize on the VPU, exp is one transcendental per
-  tap (within 1 ulp of the f64-built table, see tests/test_luts.py);
-- taps outside the inscribed circle (zero spatial weight) are dropped at
-  trace time instead of multiplied by zero;
-- the tap loop is fully unrolled with *static* window slices (constant
-  lane/sublane offsets — Mosaic cannot prove alignment for dynamic vector
-  loads).  Mosaic materializes every unrolled temporary, so the tile size
-  is scaled down with the tap count to stay inside the ~16 MB VMEM budget
-  (live-value footprints measured by hardware sweeps, see below).  Beyond
-  ``MAX_UNROLL_TAPS`` even the minimum tile overflows and the op falls back
-  to the fused-XLA formulation (still sub-linear in taps thanks to XLA
-  fusion).
+- one program per (TH, TW) output tile of the planar, border-padded u8
+  image; every tap is a shifted (TH, TW) load straight from device memory
+  (L1/L2 serve the halo reuse the reference stages in shared memory);
+- the guide stays u8 until it is in registers; the range distance is the
+  integer L1 distance of the three channels;
+- the range weight is gathered from the reference's 768-entry f32 table
+  (core/luts.py), times the spatial weight, rounded once;
+- sums are taken in the reference's (ky, kx) tap order: a loop over tap
+  rows, and inside it over the row's span of the inscribed circle, so one
+  kernel covers every ksize with a program size independent of it;
+- every product and sum rounds separately (``mul.rn`` / ``add.rn`` /
+  ``div.rn``, which ptxas never contracts into an FMA), so the compiled
+  kernel is the bit-exact twin of the golden filter.
 
-- off-center taps are processed as {d, −d} PAIRS: the range weight is
-  symmetric and the spatial LUT centrosymmetric, so one weight array
-  (computed on a slightly extended region) feeds both directions —
-  halving the exp and abs-diff work per pixel.
-
-Measured on TPU v5e at 4K, k=9: bilateral 1152 MP/s, joint bilateral
-1158 MP/s (pair-symmetric unrolled pallas, (32,640) tiles) vs 365 MP/s
-(XLA) — all within the reference's parity tolerance vs
-cv::bilateralFilter (±1 u8).
-
-Accumulation is f32, pairwise-reassociated relative to the reference's
-(ky, kx) tap order (≤1 u8, inside the parity contract — the golden layer
-keeps the exact order); the final store reproduces ``u8(sum/sumk + 0.5f)``
-truncation.
+In interpret mode (the CPU test suite) the same kernel body runs with plain
+jax.numpy arithmetic, which XLA:CPU may contract: ≤1 u8 from golden there.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plt
 
-from ...core.luts import gauss_coeff_f32
-from ..bilateral import nonzero_taps
-from .._dispatch import pallas_interpret
-from ._stencil import (plan_tiles, to_planar_padded, from_planar, pad_planar,
-                       halo_in_spec, tile_out_spec, stencil_call)
+from ...core.luts import color_table, space_kernel
+from ...core.pad import cdiv, reflect101_pad, replicate_pad
 
-# beyond this tap count even a (32, 128) tile overflows the VMEM temp budget
-MAX_UNROLL_TAPS = 120
-
-# live f32 tile-values per unrolled tap for the pair-symmetric kernel,
-# measured by hardware scoped-vmem OOM brackets.  NOT uniform across k:
-# k=9 (49 taps) fits (32,640) [≤3.99 vals/tap] but k=11 (81 taps) OOMs at
-# (32,384) needing 16.74M [4.20 vals/tap] — larger |dy| offsets mean
-# relatively bigger extended regions.  4.3 is safe across the unroll range;
-# _FAST_TILES pins the hardware-measured best for the common small-k cases
-# (self 1152 MP/s, joint 1158 MP/s at 4K k=9 via the public ops on v5e).
-_VALS_PER_TAP_SELF = 4.3
-_VALS_PER_TAP_JOINT = 4.3
-# n_taps ceiling → measured-good tile (compiles on v5e hardware).  Cap is
-# exactly the measured k=9 case (49 taps, ~3.99 vals/tap): by the 4.3
-# vals/tap model (32,640) would need ~17.3 MB at 50+ taps — over the 16 MB
-# scoped-vmem limit — so unmeasured tap counts fall through to the
-# budget-checked tiles below instead of risking a Mosaic OOM.
-_FAST_TILES = ((49, (32, 640)),)
-# k=9 self at (32, 384) measures 12.05 MB scoped and compiles with ~840 MP/s
-# at 4K — 13 MB leaves ~3 MB for in/out blocks inside the 16 MB VMEM
-_VMEM_TEMP_BUDGET = 13 * 1024 * 1024
+# output rows × cols per program (powers of two) and warps per program:
+# the fastest of a sweep of 8 tile/warp pairs at 4K k=9 on an H100
+TILE = (8, 64)
+NUM_WARPS = 4
+NUM_STAGES = 1
 
 
-def pick_tile(n_taps: int, joint: bool):
-    """Largest (th, tw) whose unrolled temporaries fit the VMEM budget."""
-    per_tap = _VALS_PER_TAP_JOINT if joint else _VALS_PER_TAP_SELF
-    budget_elems = _VMEM_TEMP_BUDGET / (4.0 * per_tap * n_taps)
-    for cap, tile in _FAST_TILES:
-        if n_taps <= cap:
-            return tile
-    for th, tw in ((64, 512), (32, 512), (32, 384), (32, 256), (32, 128)):
-        if th * tw <= budget_elems:
-            return th, tw
-    return None
-
-
-def _split_pairs(taps, radius):
-    """Split circle-masked taps into (center_ws, positive-half pairs).
-
-    The range weight is symmetric — ``w(p, p+d) = w(p+d, p)`` — and the
-    spatial LUT is centrosymmetric (``ws(d) = ws(-d)``,
-    include/cpp/bilateral_filter.hpp:17-27 builds it from d²), so every
-    off-center tap d pairs with −d sharing one weight computation."""
-    center_ws = None
-    pairs = []
-    for dy, dx, ws in taps:
-        ty, tx = dy - radius, dx - radius
-        if ty == 0 and tx == 0:
-            center_ws = ws
-        elif (ty > 0) or (ty == 0 and tx > 0):
-            pairs.append((ty, tx, ws))
-    assert center_ws is not None and 2 * len(pairs) + 1 == len(taps)
-    return np.float32(center_ws), pairs
-
-
-def _store_u8(x, rounding: str):
-    """f32 → u8 final store: the reference's ``u8(x + 0.5f)`` truncation, or
-    cvRound's half-to-even (`rint`) for the cv::ximgproc-compatible variant.
-    Mosaic has no direct f32→u8 cast; go through int32."""
-    if rounding == "rint":
-        return jnp.rint(x).astype(jnp.int32).astype(jnp.uint8)
-    return jnp.floor(x + np.float32(0.5)).astype(jnp.int32).astype(jnp.uint8)
-
-
-def _make_kernel(plan, taps, coeff, joint: bool, rounding: str = "trunc"):
-    """Pair-symmetric unrolled stencil: each weight is computed ONCE per
-    {d, −d} pair on an extended (th+|dy|, tw+|dx|) region covering both the
-    tile and the tile shifted by −d, then accumulated in both directions —
-    halving the exp/abs-diff work per pixel (with ref-sliced s(p±d) loads
-    and (32,640) tiles: 953 → 1152 MP/s self, 697 → 1158 MP/s joint at 4K
-    k=9 on v5e).  Accumulation order therefore
-    differs from the reference's (ky, kx) scan by f32 reassociation only
-    (≤1 u8, inside the parity contract)."""
-    th, tw, r = plan.th, plan.tw, plan.radius
-    center_ws, pairs = _split_pairs(taps, r)
-    lg_coeff = np.float32(coeff) * np.float32(np.log2(np.e))
-
-    def compute(src_ref, guide_ref, out_ref):
-        # center tap: weight is exactly center_ws (dist = 0); pairs never
-        # touch the guide center, so no gc slices are loaded at all
-        a = [(src_ref if joint else guide_ref)[c, r : r + th, r : r + tw]
-             * center_ws for c in range(3)]
-        ak = jnp.full((th, tw), center_ws, jnp.float32)
-        for ty, tx, ws in pairs:
-            mx = max(tx, 0)
-            eh, ew = th + ty, tw + abs(tx)
-            r0, c0 = r - ty, r - mx        # extended-region origin (block)
-            ge = [guide_ref[c, r0 : r0 + eh, c0 : c0 + ew] for c in range(3)]
-            gd = [guide_ref[c, r0 + ty : r0 + ty + eh, c0 + tx : c0 + tx + ew]
-                  for c in range(3)]
-            dist = (jnp.abs(gd[0] - ge[0]) + jnp.abs(gd[1] - ge[1])
-                    + jnp.abs(gd[2] - ge[2]))
-            # ws·exp(d²·coeff) folded into one exp2: exp lowers to
-            # exp2(x·log2e) anyway, so pre-scaling coeff and carrying ws as
-            # a log₂ addend turns mul+exp+mul into fma+exp2 (weight differs
-            # by ≤2 ulp from the factored form — inside the ±1 u8 contract)
-            wk = jnp.exp2(dist * dist * lg_coeff + np.float32(np.log2(ws)))
-            # pixel p of the tile sits at extended index (ty, mx); its pair
-            # partner p−d at (0, mx−tx)
-            w1 = wk[ty : ty + th, mx : mx + tw]
-            c2 = mx - tx
-            w2 = wk[0:th, c2 : c2 + tw]
-            sref = src_ref if joint else guide_ref
-            for c in range(3):
-                # s(p±d) straight from the halo block (tile-sized ref loads;
-                # multiplying the extended wk and value-slicing the product
-                # costs 3 extra ext muls + 3 slice relayouts per pair)
-                s_plus = sref[c, r + ty : r + ty + th, r + tx : r + tx + tw]
-                s_minus = sref[c, r - ty : r - ty + th, r - tx : r - tx + tw]
-                a[c] = a[c] + s_plus * w1 + s_minus * w2
-            ak = ak + w1 + w2
-        inv = jnp.float32(1.0) / ak
-        for c in range(3):
-            out_ref[c] = _store_u8(a[c] * inv, rounding)
-
-    if joint:
-        return compute
-
-    def compute_self(src_ref, out_ref):
-        return compute(src_ref, src_ref, out_ref)
-
-    return compute_self
-
-
-def _make_partial_kernel(plan, pairs, center_ws, coeff, joint: bool):
-    """Pair-symmetric unrolled stencil over a SUBSET of the tap pairs,
-    emitting raw f32 accumulators (3 weighted channel sums + weight sum)
-    instead of the normalized u8 — large stencils split into chunks whose
-    partials add in XLA.  ``center_ws`` is the center-tap weight for the
-    chunk that carries it (None otherwise).  Ordering note: the pair
-    accumulation and the cross-chunk pairwise adds differ from the
-    reference's sequential (ky, kx) order by f32 reassociation only
-    (inside the ±1 u8 contract)."""
-    th, tw, r = plan.th, plan.tw, plan.radius
-    lg_coeff = np.float32(coeff) * np.float32(np.log2(np.e))
-
-    def compute(src_ref, guide_ref, acc_ref):
-        if center_ws is not None:
-            cw = np.float32(center_ws)
-            a = [(src_ref if joint else guide_ref)[c, r : r + th, r : r + tw]
-                 * cw for c in range(3)]
-            ak = jnp.full((th, tw), cw, jnp.float32)
-        else:
-            a = [jnp.zeros((th, tw), jnp.float32) for _ in range(3)]
-            ak = jnp.zeros((th, tw), jnp.float32)
-        for ty, tx, ws in pairs:
-            mx = max(tx, 0)
-            eh, ew = th + ty, tw + abs(tx)
-            r0, c0 = r - ty, r - mx
-            ge = [guide_ref[c, r0 : r0 + eh, c0 : c0 + ew] for c in range(3)]
-            gd = [guide_ref[c, r0 + ty : r0 + ty + eh, c0 + tx : c0 + tx + ew]
-                  for c in range(3)]
-            dist = (jnp.abs(gd[0] - ge[0]) + jnp.abs(gd[1] - ge[1])
-                    + jnp.abs(gd[2] - ge[2]))
-            # fma+exp2 folded weight — see _make_kernel
-            wk = jnp.exp2(dist * dist * lg_coeff + np.float32(np.log2(ws)))
-            w1 = wk[ty : ty + th, mx : mx + tw]
-            c2 = mx - tx
-            w2 = wk[0:th, c2 : c2 + tw]
-            sref = src_ref if joint else guide_ref
-            for c in range(3):
-                s_plus = sref[c, r + ty : r + ty + th, r + tx : r + tx + tw]
-                s_minus = sref[c, r - ty : r - ty + th, r - tx : r - tx + tw]
-                a[c] = a[c] + s_plus * w1 + s_minus * w2
-            ak = ak + w1 + w2
-        acc_ref[0] = a[0]
-        acc_ref[1] = a[1]
-        acc_ref[2] = a[2]
-        acc_ref[3] = ak
-
-    if joint:
-        return compute
-
-    def compute_self(src_ref, acc_ref):
-        return compute(src_ref, src_ref, acc_ref)
-
-    return compute_self
-
-
-def _run_split(src_u8, guide_u8, ksize, sigma_space, sigma_color, joint: bool,
-               tile=(32, 512), border: str = "replicate",
-               rounding: str = "trunc", planar: bool = False):
-    """Mid-size stencils (MAX_UNROLL < taps ≤ a few×MAX_UNROLL): several
-    fully-unrolled partial-accumulator kernels + an XLA combine — measured
-    ~2.5× the throughput of the rolled chunked kernel at k=17 (the rolls
-    relayout the whole halo block once per tap row).  ``tile`` is exposed
-    for hardware tile sweeps; production callers use the measured
-    default.  planar=True: (3, H, W) in/out, no HWC relayouts."""
-    if planar:
-        _, h, w = src_u8.shape
+def _asm(interpret: bool, op: str, *args):
+    """f32 ``op.rn`` (or ``cvt.rni``) on same-shape f32 arrays."""
+    if interpret:
+        x = args[0]
+        return {"mul": lambda: x * args[1], "add": lambda: x + args[1],
+                "div": lambda: x / args[1], "rint": lambda: jnp.rint(x)}[op]()
+    if op == "rint":
+        asm, cons = "cvt.rni.f32.f32 $0, $1;", "=f,f"
     else:
-        h, w, _ = src_u8.shape
-    radius = ksize // 2
-    taps = nonzero_taps(ksize, sigma_space)
-    center_ws, pairs = _split_pairs(taps, radius)
-    # size chunks so the tile fits the VMEM temp budget — smaller tiles
-    # lose more to halo read amplification than fewer passes save (k=17
-    # joint at 600×900: (32,512) 2.35 ms vs (32,256) 3.04, (32,640) OOMs).
-    # A pair's live temps ≈ two taps'.
-    per_tap = _VALS_PER_TAP_JOINT if joint else _VALS_PER_TAP_SELF
-    per = int(_VMEM_TEMP_BUDGET / (4.0 * per_tap * tile[0] * tile[1]))
-    if per < 8:
-        return None
-    per_pairs = max(per // 2, 4)
-    nchunks = -(-len(pairs) // per_pairs)
-    per_pairs = -(-len(pairs) // nchunks)  # balance chunk sizes
-    chunks = [pairs[i * per_pairs : (i + 1) * per_pairs]
-              for i in range(nchunks)]
-    plan = plan_tiles(h, w, radius, th=tile[0], tw=tile[1])
-    coeff = gauss_coeff_f32(sigma_color)
-    prep = pad_planar if planar else to_planar_padded
-    src_p = prep(src_u8, plan, border=border)
-    args = (src_p,)
-    in_specs = [halo_in_spec(plan)]
-    if joint:
-        guide_p = prep(guide_u8, plan, border=border)
-        args = (src_p, guide_p)
-        in_specs = [halo_in_spec(plan), halo_in_spec(plan)]
-    out_shape = jax.ShapeDtypeStruct((4, plan.out_rows, plan.out_cols),
-                                     jnp.float32)
-    total = None
-    for i, chunk in enumerate(chunks):
-        cost = pl.CostEstimate(
-            flops=len(chunk) * 28 * plan.out_rows * plan.out_cols,
-            bytes_accessed=(2 if joint else 1) * 3 * plan.padded_rows
-            * plan.padded_cols * 4,
-            transcendentals=len(chunk) * plan.out_rows * plan.out_cols,
-        )
-        cw = center_ws if i == 0 else None
-        acc = stencil_call(_make_partial_kernel(plan, chunk, cw, coeff, joint),
-                           plan, in_specs, tile_out_spec(plan, 4), out_shape,
-                           cost)(*args)
-        total = acc if total is None else total + acc
-    inv = jnp.float32(1.0) / total[3]
-    if rounding == "rint":
-        out = jnp.rint(total[:3] * inv).astype(jnp.uint8)
+        asm, cons = f"{op}.rn.f32 $0, $1, $2;", "=f,f,f"
+    return plt.elementwise_inline_asm(
+        asm, args=list(args), constraints=cons, pack=1,
+        result_shape_dtypes=[jax.ShapeDtypeStruct(args[0].shape,
+                                                  jnp.float32)])[0]
+
+
+def _kernel(ws_ref, span_ref, lut_ref, src_ref, guide_ref, out_ref, *,
+            ksize: int, th: int, tw: int, joint: bool, rounding: str,
+            interpret: bool):
+    r = ksize // 2
+    r0 = pl.program_id(0) * th
+    c0 = pl.program_id(1) * tw
+    op = functools.partial(_asm, interpret)
+
+    def tile(ref, c, dy, dx):
+        return ref[c, pl.ds(r0 + dy, th), pl.ds(c0 + dx, tw)]
+
+    gc = [tile(guide_ref, c, r, r).astype(jnp.int32) for c in range(3)]
+
+    def tap(ky, kx, acc):
+        g = [tile(guide_ref, c, ky, kx) for c in range(3)]
+        gi = [v.astype(jnp.int32) for v in g]
+        dist = (jnp.abs(gi[0] - gc[0]) + jnp.abs(gi[1] - gc[1])
+                + jnp.abs(gi[2] - gc[2]))
+        ws = jnp.broadcast_to(ws_ref[ky * ksize + kx], (th, tw))
+        wk = op("mul", lut_ref[dist], ws)
+        s = [tile(src_ref, c, ky, kx) for c in range(3)] if joint else g
+        sums = [op("add", acc[c], op("mul", s[c].astype(jnp.float32), wk))
+                for c in range(3)]
+        return (*sums, op("add", acc[3], wk))
+
+    def row(ky, acc):
+        return jax.lax.fori_loop(span_ref[2 * ky], span_ref[2 * ky + 1],
+                                 functools.partial(tap, ky), acc)
+
+    zero = jnp.zeros((th, tw), jnp.float32)
+    acc = jax.lax.fori_loop(0, ksize, row, (zero, zero, zero, zero))
+    half = jnp.full((th, tw), 0.5, jnp.float32)
+    for c in range(3):
+        q = op("div", acc[c], acc[3])
+        q = op("rint", q) if rounding == "rint" else jnp.floor(op("add", q, half))
+        out_ref[c, pl.ds(r0, th), pl.ds(c0, tw)] = (
+            q.astype(jnp.int32).astype(jnp.uint8))
+
+
+def _tap_tables(ksize: int, sigma_space: float):
+    """(flat (k·k,) f32 spatial weights, (2k,) i32 [lo, hi) column span of
+    each tap row's non-zero weights).  The circle mask makes every row's
+    non-zero weights contiguous; zero weights inside a span (underflow at
+    tiny σ_space) add exact zeros."""
+    space = space_kernel(ksize, sigma_space)
+    span = np.zeros((ksize, 2), np.int32)
+    for ky in range(ksize):
+        nz = np.nonzero(space[ky])[0]
+        span[ky] = (nz[0], nz[-1] + 1) if nz.size else (0, 0)
+    return space.reshape(-1), span.reshape(-1)
+
+
+def _planar_padded(img: jax.Array, r: int, rows: int, cols: int,
+                   border: str) -> jax.Array:
+    """(H, W, 3) u8 → (3, rows, cols) u8: ``border`` halo of r on every side
+    (replicate, or reflect-101 for the cv::ximgproc variant), then replicate
+    padding on the bottom/right up to whole tiles (it only feeds outputs
+    that are cropped)."""
+    h, w, _ = img.shape
+    if border == "reflect101" and r > 0:
+        img = reflect101_pad(img, r, 0, 1)
+        img = replicate_pad(img, 0, rows - img.shape[0], 0, cols - img.shape[1])
     else:
-        out = jnp.floor(total[:3] * inv + jnp.float32(0.5)).astype(jnp.uint8)
-    if planar:
-        return out[:, :h, :w]
-    return from_planar(out, plan)
+        img = replicate_pad(img, r, rows - r - h, r, cols - r - w)
+    return img.transpose(2, 0, 1)
 
 
-def _make_chunked_kernel(plan, ksize, coeff, joint: bool,
-                         rounding: str = "trunc"):
-    """Large-k variant: the grid gains a third dimension over tap rows (ky).
-    Per step the halo block (which Pallas keeps VMEM-resident across the ky
-    steps — its index map ignores ky) is rolled down by ky once
-    (tpu dynamic_rotate, the only dynamic indexing Mosaic allows here), then
-    the k taps of that row use static lane offsets.  f32 accumulators live in
-    VMEM scratch, zeroed at ky==0 and finalized at ky==k−1.  Temp liveness
-    is one tap row, so even 2k−1=17 windows fit VMEM."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    th, tw, r = plan.th, plan.tw, plan.radius
-    bh = th + plan.halo_h
-
-    def compute(ws_ref, src_ref, guide_ref, out_ref, a0, a1, a2, ak):
-        ky = pl.program_id(2)
-
-        @pl.when(ky == 0)
-        def _():
-            zeros = jnp.zeros((th, tw), jnp.float32)
-            a0[...] = zeros
-            a1[...] = zeros
-            a2[...] = zeros
-            ak[...] = zeros
-
-        gc0 = guide_ref[0, r : r + th, r : r + tw]
-        gc1 = guide_ref[1, r : r + th, r : r + tw]
-        gc2 = guide_ref[2, r : r + th, r : r + tw]
-
-        shift = (jnp.int32(bh) - ky) % jnp.int32(bh)  # roll rows down by ky
-        g0 = pltpu.roll(guide_ref[0], shift, 0)
-        g1 = pltpu.roll(guide_ref[1], shift, 0)
-        g2 = pltpu.roll(guide_ref[2], shift, 0)
-        if joint:
-            s0 = pltpu.roll(src_ref[0], shift, 0)
-            s1 = pltpu.roll(src_ref[1], shift, 0)
-            s2 = pltpu.roll(src_ref[2], shift, 0)
-        else:
-            s0, s1, s2 = g0, g1, g2
-
-        c0, c1, c2, ck = a0[...], a1[...], a2[...], ak[...]
-        for dx in range(ksize):
-            ws = ws_ref[ky * ksize + dx]
-            gg0 = g0[0:th, dx : dx + tw]
-            gg1 = g1[0:th, dx : dx + tw]
-            gg2 = g2[0:th, dx : dx + tw]
-            dist = jnp.abs(gg0 - gc0) + jnp.abs(gg1 - gc1) + jnp.abs(gg2 - gc2)
-            wk = ws * jnp.exp(dist * dist * coeff)
-            if joint:
-                c0 = c0 + s0[0:th, dx : dx + tw] * wk
-                c1 = c1 + s1[0:th, dx : dx + tw] * wk
-                c2 = c2 + s2[0:th, dx : dx + tw] * wk
-            else:
-                c0 = c0 + gg0 * wk
-                c1 = c1 + gg1 * wk
-                c2 = c2 + gg2 * wk
-            ck = ck + wk
-        a0[...] = c0
-        a1[...] = c1
-        a2[...] = c2
-        ak[...] = ck
-
-        @pl.when(ky == pl.num_programs(2) - 1)
-        def _():
-            inv = jnp.float32(1.0) / ak[...]
-            out_ref[0] = _store_u8(a0[...] * inv, rounding)
-            out_ref[1] = _store_u8(a1[...] * inv, rounding)
-            out_ref[2] = _store_u8(a2[...] * inv, rounding)
-
-    if joint:
-        return compute
-
-    def compute_self(ws_ref, src_ref, out_ref, a0, a1, a2, ak):
-        return compute(ws_ref, src_ref, src_ref, out_ref, a0, a1, a2, ak)
-
-    return compute_self
-
-
-def _run_chunked(src_u8, guide_u8, ksize, sigma_space, sigma_color,
-                 joint: bool, th: int = 32, tw: int = 256,
-                 border: str = "replicate", rounding: str = "trunc"):
-    from jax.experimental.pallas import tpu as pltpu
-    from ...core.luts import space_kernel
-
-    h, w, _ = src_u8.shape
-    radius = ksize // 2
-    plan = plan_tiles(h, w, radius, th=th, tw=tw)
-    ws_flat = jnp.asarray(space_kernel(ksize, sigma_space).reshape(-1))
-    coeff = gauss_coeff_f32(sigma_color)
-
-    src_p = to_planar_padded(src_u8, plan, border=border)
-    n_taps = ksize * ksize
-    cost = pl.CostEstimate(
-        flops=n_taps * 16 * plan.out_rows * plan.out_cols,
-        bytes_accessed=(2 if joint else 1) * 3 * plan.padded_rows * plan.padded_cols * 4,
-        transcendentals=n_taps * plan.out_rows * plan.out_cols,
-    )
-    kernel = _make_chunked_kernel(plan, ksize, coeff, joint, rounding)
-    out_shape = jax.ShapeDtypeStruct((3, plan.out_rows, plan.out_cols), jnp.uint8)
-
-    def in3(spec):
-        # same block for every ky step → Pallas keeps it VMEM-resident
-        base = spec
-        return pl.BlockSpec(base.block_shape,
-                            lambda i, j, t: (0, i * plan.th, j * plan.tw),
-                            memory_space=pltpu.VMEM)
-
-    smem = [pl.BlockSpec(memory_space=pltpu.SMEM)]
-    in_specs = smem + [in3(halo_in_spec(plan))]
-    args = (ws_flat, src_p)
-    if joint:
-        guide_p = to_planar_padded(guide_u8, plan, border=border)
-        in_specs = in_specs + [in3(halo_in_spec(plan))]
-        args = (ws_flat, src_p, guide_p)
+@functools.partial(jax.jit, static_argnames=(
+    "ksize", "sigma_space", "sigma_color", "border", "rounding", "interpret"))
+def joint_bilateral_pallas(src: jax.Array, guide: jax.Array | None,
+                           ksize: int, sigma_space: float, sigma_color: float,
+                           border: str = "replicate", rounding: str = "trunc",
+                           *, interpret: bool) -> jax.Array:
+    """(H, W, 3) u8 src (+ u8 guide, or None for the self-guided filter) →
+    (H, W, 3) u8.  border/rounding select the reference-JBF vs
+    cv::ximgproc::jointBilateralFilter semantics (see
+    ops/bilateral.py::_bilateral_math)."""
+    h, w, _ = src.shape
+    th, tw = TILE
+    r = ksize // 2
+    nh, nw = cdiv(h, th), cdiv(w, tw)
+    rows, cols = nh * th + 2 * r, nw * tw + 2 * r
+    ws, span = _tap_tables(ksize, sigma_space)
+    lut = color_table(sigma_color)
+    src_p = _planar_padded(src, r, rows, cols, border)
+    joint = guide is not None
+    guide_p = _planar_padded(guide, r, rows, cols, border) if joint else src_p
+    kernel = functools.partial(_kernel, ksize=ksize, th=th, tw=tw,
+                               joint=joint, rounding=rounding,
+                               interpret=interpret)
+    anywhere = pl.BlockSpec(memory_space=pl.ANY)
     out = pl.pallas_call(
         kernel,
-        grid=(plan.nh, plan.nw, ksize),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((3, plan.th, plan.tw), lambda i, j, t: (0, i, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=out_shape,
-        scratch_shapes=[pltpu.VMEM((plan.th, plan.tw), jnp.float32)] * 4,
-        interpret=pallas_interpret(),
-        cost_estimate=cost,
-    )(*args)
-    return from_planar(out, plan)
-
-
-def _run(src_u8, guide_u8, ksize, sigma_space, sigma_color, joint: bool,
-         border: str = "replicate", rounding: str = "trunc",
-         planar: bool = False):
-    if planar:
-        _, h, w = src_u8.shape
-    else:
-        h, w, _ = src_u8.shape
-    radius = ksize // 2
-    taps = nonzero_taps(ksize, sigma_space)
-    tile = pick_tile(len(taps), joint)
-    if tile is None or len(taps) > MAX_UNROLL_TAPS:
-        if len(taps) <= 4 * MAX_UNROLL_TAPS:
-            out = _run_split(src_u8, guide_u8, ksize, sigma_space,
-                             sigma_color, joint, border=border,
-                             rounding=rounding, planar=planar)
-            if out is not None:
-                return out
-        # very large stencil: tap-row-chunked kernel (3rd grid dim over ky)
-        if planar:  # _run_chunked is HWC-only (no planar caller needs it)
-            src_u8 = src_u8.transpose(1, 2, 0)
-            guide_u8 = guide_u8.transpose(1, 2, 0) if joint else guide_u8
-            return _run_chunked(src_u8, guide_u8, ksize, sigma_space,
-                                sigma_color, joint, border=border,
-                                rounding=rounding).transpose(2, 0, 1)
-        return _run_chunked(src_u8, guide_u8, ksize, sigma_space, sigma_color,
-                            joint, border=border, rounding=rounding)
-
-    plan = plan_tiles(h, w, radius, th=tile[0], tw=tile[1])
-    coeff = gauss_coeff_f32(sigma_color)
-    prep = pad_planar if planar else to_planar_padded
-    src_p = prep(src_u8, plan, border=border)
-    # pair model: one exp per {d,−d} pair, ~28 flops/pair (≈14/tap)
-    n_pairs = len(taps) // 2
-    cost = pl.CostEstimate(
-        flops=n_pairs * 28 * plan.out_rows * plan.out_cols,
-        bytes_accessed=(2 if joint else 1) * 3 * plan.padded_rows * plan.padded_cols * 4,
-        transcendentals=n_pairs * plan.out_rows * plan.out_cols,
-    )
-    kernel = _make_kernel(plan, taps, coeff, joint, rounding)
-    out_shape = jax.ShapeDtypeStruct((3, plan.out_rows, plan.out_cols), jnp.uint8)
-    if joint:
-        guide_p = prep(guide_u8, plan, border=border)
-        out = stencil_call(kernel, plan,
-                           [halo_in_spec(plan), halo_in_spec(plan)],
-                           tile_out_spec(plan), out_shape, cost)(src_p, guide_p)
-    else:
-        out = stencil_call(kernel, plan, [halo_in_spec(plan)],
-                           tile_out_spec(plan), out_shape, cost)(src_p)
-    if planar:
-        return out[:, :h, :w]
-    return from_planar(out, plan)
-
-
-def joint_bilateral_pallas(src_u8: jax.Array, guide_u8: jax.Array, ksize: int,
-                           sigma_space: float, sigma_color: float,
-                           border: str = "replicate",
-                           rounding: str = "trunc") -> jax.Array:
-    """(H, W, 3) u8 src + guide → (H, W, 3) u8.  border/rounding select the
-    reference-JBF vs cv::ximgproc::jointBilateralFilter semantics (see
-    ops/bilateral.py::_bilateral_math)."""
-    return _run(src_u8, guide_u8, ksize, sigma_space, sigma_color, joint=True,
-                border=border, rounding=rounding)
-
-
-def joint_bilateral_pallas_planar(src_p: jax.Array, guide_p: jax.Array,
-                                  ksize: int, sigma_space: float,
-                                  sigma_color: float,
-                                  border: str = "replicate",
-                                  rounding: str = "trunc") -> jax.Array:
-    """Planar variant: (3, H, W) u8-valued src + guide → (3, H, W) u8 —
-    used by the BTF pipeline to stay planar between stages (each HWC↔CHW
-    relayout costs ~0.06 ms at 600×900 on v5e)."""
-    return _run(src_p, guide_p, ksize, sigma_space, sigma_color, joint=True,
-                border=border, rounding=rounding, planar=True)
-
-
-def bilateral_pallas(src_u8: jax.Array, ksize: int, sigma_space: float,
-                     sigma_color: float) -> jax.Array:
-    """(H, W, 3) u8 → (H, W, 3) u8 (range kernel keyed off src itself;
-    single VMEM stream, no duplicated guide traffic)."""
-    return _run(src_u8, None, ksize, sigma_space, sigma_color, joint=False)
+        grid=(nh, nw),
+        in_specs=[anywhere] * 5,
+        out_specs=anywhere,
+        out_shape=jax.ShapeDtypeStruct((3, nh * th, nw * tw), jnp.uint8),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=NUM_STAGES),
+        interpret=interpret,
+        name="bilateral_tile",
+    )(jnp.asarray(ws), jnp.asarray(span), jnp.asarray(lut), src_p, guide_p)
+    return out[:, :h, :w].transpose(1, 2, 0)

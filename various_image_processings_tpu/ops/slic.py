@@ -1,5 +1,5 @@
 """SLIC superpixels — implemented in models/slic.py (vectorized k-means over
-the ICI-friendly grid); this module re-exports the functional wrapper.
+the superpixel grid); this module re-exports the functional wrapper.
 
 Counterpart of ``superpixel_slic`` (reference: include/cpp/slic.hpp:482).
 """
@@ -17,9 +17,8 @@ def superpixel_slic(image, superpixel_size: int = 30, num_iteration: int = 10,
     variant, twinned for API completeness — core/ciede2000.py).
 
     Unlike the stencil ops there is no ``impl`` parameter: the device stage
-    is a pure-XLA k-means program (gathers/segment reductions, nothing a
-    hand-written Pallas kernel would beat), and the connectivity stage runs
-    in native C++ on the host."""
+    is a pure-XLA k-means program, and the connectivity stage runs in
+    native C++ on the host."""
     from ..models.slic import SuperpixelSLIC
     h, w = image.shape[0], image.shape[1]
     slic = SuperpixelSLIC(h, w, superpixel_size, num_iteration, color_scale,

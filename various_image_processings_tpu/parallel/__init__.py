@@ -1,7 +1,7 @@
-"""Multi-chip layer: batch sharding over ICI meshes and spatial sharding with
-halo exchange. The reference is a single-GPU library; this layer is the
-TPU-native scaling story (SURVEY.md §2: shard_map batch fan-out, ppermute
-halos for images larger than one chip's VMEM/HBM budget)."""
+"""Multi-device layer: batch sharding over device meshes and spatial sharding
+with halo exchange. The reference is a single-GPU library; this layer is
+the scaling story (SURVEY.md §2: shard_map batch fan-out, ppermute halos
+for images larger than one device's memory)."""
 
 from .mesh import make_mesh as make_mesh
 from .mesh import BATCH_AXIS as BATCH_AXIS

@@ -1,8 +1,9 @@
 """Device mesh helpers.
 
 The reference is a single-process single-GPU library (SURVEY.md §2); this
-layer is the TPU-native scaling story: ICI meshes with named axes for batch
-fan-out ("batch") and spatial row-sharding ("y")."""
+layer is the scaling story: device meshes with named axes for batch
+fan-out ("batch") and spatial row-sharding ("y").  Every device reaches
+every other at the same rate, so the mesh follows the algorithm alone."""
 
 from __future__ import annotations
 
